@@ -2,7 +2,7 @@
 
 Reference: src/renderers/hellopt* (649 LoC) + hellopt_plugin.cpp:36-40, the
 DLL plugin shipped as the plugin-API example. This is the same thing for the
-TPU build: a self-contained ~60-line unidirectional path tracer (BSDF
+This build: a self-contained ~60-line unidirectional path tracer (BSDF
 sampling only, no NEE) registered through the public plugin entry point.
 
 Run:

@@ -7,7 +7,7 @@ value_and_grad of the pixel MSE (the gradient flows through shading,
 textures and emitter radiance; sampling decisions are detached, see
 integrators/pt.py).
 
-Run (CPU or TPU; small sizes keep it under a minute on CPU):
+Run (CPU or GPU; small sizes keep it under a minute on CPU):
   python examples/inverse_rendering.py [--res 24] [--iters 40]
 
 On a multi-chip mesh the same loss runs sharded with an implicit gradient
@@ -28,7 +28,7 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=40)
     ap.add_argument("--lr", type=float, default=2.0)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend even when a TPU is attached")
+                    help="force the CPU backend even when a GPU is attached")
     args = ap.parse_args()
 
     import jax

@@ -1,9 +1,9 @@
-"""fermat_tpu — a TPU-native differentiable physically-based renderer.
+"""fermat_tpu — a differentiable physically-based renderer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of NVlabs/fermat
 (reference mounted at /root/reference): wavefront path tracing, bidirectional
 path tracing, Metropolis light transport variants, path-space filtering, and
-clustered-RL light sampling — built for TPU hardware:
+clustered-RL light sampling — as data-parallel JAX programs:
 
   * traversal + shading run as mega-batched wavefronts (one lane per ray),
   * queue "atomics" are replaced by scan-based stream compaction,

@@ -5,7 +5,7 @@ photon-style estimators). The framework's own density estimators (PSFPT,
 RPT) use stochastic spatial hashing instead — this module exists for
 parity and for host-side tooling that wants exact kNN.
 
-TPU shape: host numpy median-split build into flat skip-link arrays (the
+Shape: host numpy median-split build into flat skip-link arrays (the
 same stackless scheme as the 3D/2D BVHs); the device query is a
 `lax.while_loop` walk carrying an UNROLLED k-best register file per lane
 (k is static and small), pruning subtrees whose AABB distance exceeds the

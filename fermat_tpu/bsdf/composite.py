@@ -178,7 +178,7 @@ ALL_LOBES = (True, True, True, True)  # (dr, dt, gr, gt)
 def scene_lobes(materials_host) -> tuple:
     """Static lobe mask from host material inspection: scenes without
     transmissive materials skip the (expensive) transmission lobes entirely
-    — the TPU analog of the reference's DIFFUSE_ONLY/SUPPRESS_* compile-time
+    — the analog of the reference's DIFFUSE_ONLY/SUPPRESS_* compile-time
     switches (bsdf.h:648-663), derived automatically per scene."""
     has_dt = any(max(m.diffuse_trans) > 0 for m in materials_host)
     has_gt = any(m.opacity < 1.0 for m in materials_host)
@@ -321,28 +321,6 @@ def f_split(
         + p_gt * (ggx.refract_pdf(alpha, p.ior, wi, wo) if lobes[3] else zero)
     )
     return fd, fg, mix_pdf
-
-
-def diffuse_refl_unit(
-    p: BsdfParams, wi: Vec3, wo: Vec3, clearcoat: bool = False,
-    e_fn=None, lobes=ALL_LOBES,
-) -> Vec3:
-    """d f / d p.diffuse — the diffuse-reflection lobe with the albedo
-    factored out. f_split's fd is EXACTLY linear in p.diffuse
-    (fd = diffuse * [INV_PI * w_d] (+ diffuse_trans * ...), and
-    component_weights does not read p.diffuse), so this is the exact
-    per-channel partial derivative the mega replay-gradient kernel
-    (ops/pallas_pt_mega.py) accumulates. Channels differ only under
-    clearcoat (the 1-Fc coat transmission is chromatic)."""
-    _r, w_d, _w_dt, _w_gt = component_weights(p, wi, wo, e_fn)
-    same = (wi.z * wo.z) > 0.0
-    zero = jnp.zeros_like(w_d)
-    f_dr = jnp.where(same, INV_PI, 0.0) * w_d if lobes[0] else zero
-    if clearcoat:
-        tc = clearcoat_fresnel(p, wi)
-        return Vec3(f_dr * (1.0 - tc.x), f_dr * (1.0 - tc.y),
-                    f_dr * (1.0 - tc.z))
-    return Vec3(f_dr, f_dr, f_dr)
 
 
 class BsdfSample(NamedTuple):

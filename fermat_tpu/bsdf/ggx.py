@@ -2,7 +2,7 @@
 reflection + transmission eval/pdf.
 
 Reference analog: cugar/bsdf/ggx_smith.h:204 (GGXSmithBsdf sample/eval/invert)
-and cugar/bsdf/ggx_common.h. The TPU build samples the *visible* NDF
+and cugar/bsdf/ggx_common.h. This build samples the *visible* NDF
 (Heitz 2018 spherical-cap method) rather than the plain NDF — strictly lower
 variance at identical cost, and trivially vectorized.
 
@@ -279,12 +279,12 @@ _ALBEDO_TABLE_NP = None
 def glossy_reflectance(roughness: Array, cos_theta: Array) -> Array:
     """Bilinear lookup of the F=1 GGX directional albedo (Kelemen coupling).
 
-    GATHER-FREE: `t[r0, c0]`-style 2D gathers lower to ~10 cycles/lane on
-    TPU and were ~55% of the whole 512^2 PT pass (PERF_ATTRIB.md round 2).
-    Instead the bilinear interpolation weights are placed directly into
-    sparse row/column weight matrices and the lookup becomes one
-    (N, 32) @ (32, 32) MXU matmul + a lane reduction — numerically identical
-    to the 4-corner gather formulation.
+    GATHER-FREE: the bilinear interpolation weights are placed directly
+    into sparse row/column weight matrices and the lookup becomes one
+    (N, 32) @ (32, 32) matmul + a lane reduction — numerically identical
+    to the 4-corner gather formulation. It was chosen for hardware with
+    slow 2D gathers; whether the gather form is faster on the GPU is open
+    (ROADMAP 1.6).
 
     The table is cached as a HOST numpy array and converted per call: jnp
     constants created inside a jit trace would leak tracers across traces;

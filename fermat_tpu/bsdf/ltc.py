@@ -11,9 +11,9 @@ the cosine-weighted GGX slice:
     D(w) = cos(M^-1 w)/pi * |det M^-1| / ||M^-1 w||^3
 so pdf == D and eval = D * magnitude(roughness, cos_i) / cos_o.
 
-TPU shape: the (32, 32, 4) parameter table is fetched with the same
-gather-free one-hot MXU bilinear scheme as the albedo table (ggx.py
-glossy_reflectance; 2D gathers measured at ~55% of a full pass in round 2).
+Shape: the (32, 32, 4) parameter table is fetched with the same
+gather-free one-hot bilinear matmul as the albedo table (ggx.py
+glossy_reflectance; ROADMAP 1.6).
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Reference analogs:
   * cugar/sampling/em.h — (joint-entropy / stepwise) EM updates of the
     mixture from weighted samples.
 
-TPU shape: everything is vectorized over flat (N,) sample arrays; the EM
+Shape: everything is vectorized over flat (N,) sample arrays; the EM
 step is one batched responsibility matmul + weighted moment reductions —
 jit-friendly, no data-dependent shapes.
 """
@@ -176,7 +176,8 @@ class GaussianMixture2D(NamedTuple):
         d = x[:, None, :] - self.means[None]  # (N, K, 2)
         inv = jnp.linalg.inv(self.covs)  # (K, 2, 2)
         det = jnp.maximum(jnp.linalg.det(self.covs), 1e-20)
-        q = jnp.einsum("nki,kij,nkj->nk", d, inv, d)
+        q = jnp.einsum("nki,kij,nkj->nk", d, inv, d,
+                       precision=jax.lax.Precision.HIGHEST)
         return jnp.exp(-0.5 * q) / (_TWO_PI * jnp.sqrt(det))
 
     def pdf(self, x: Array) -> Array:
@@ -195,7 +196,8 @@ class GaussianMixture2D(NamedTuple):
             [r * jnp.cos(_TWO_PI * u1), r * jnp.sin(_TWO_PI * u1)], axis=1
         )
         chol = jnp.linalg.cholesky(self.covs)  # (K, 2, 2)
-        return self.means[k] + jnp.einsum("nij,nj->ni", chol[k], z)
+        return self.means[k] + jnp.einsum("nij,nj->ni", chol[k], z,
+                                          precision=jax.lax.Precision.HIGHEST)
 
 
 def em_step(
@@ -212,9 +214,11 @@ def em_step(
     resp = resp / jnp.maximum(jnp.sum(resp, axis=1, keepdims=True), 1e-20)
     rw = resp * w[:, None]  # (N, K)
     nk = jnp.maximum(jnp.sum(rw, axis=0), 1e-12)  # (K,)
-    means = (rw.T @ x) / nk[:, None]  # (K, 2)
+    means = jnp.matmul(rw.T, x,
+                       precision=jax.lax.Precision.HIGHEST) / nk[:, None]
     d = x[:, None, :] - means[None]  # (N, K, 2)
-    covs = jnp.einsum("nk,nki,nkj->kij", rw, d, d) / nk[:, None, None]
+    covs = jnp.einsum("nk,nki,nkj->kij", rw, d, d,
+                      precision=jax.lax.Precision.HIGHEST) / nk[:, None, None]
     covs = covs + jnp.eye(2) * min_var  # regularize (em.h epsilon)
     weights = nk / jnp.sum(nk)
     return GaussianMixture2D(weights=weights, means=means, covs=covs)

@@ -1,9 +1,8 @@
 """Vector math on structure-of-arrays Vec3.
 
-Reference analog: cugar/linalg/vector.h (Vector<float,3> AoS) — but the TPU
+Reference analog: cugar/linalg/vector.h (Vector<float,3> AoS) — but this
 build deliberately uses SoA: a Vec3 is three flat (N,)-shaped arrays so that
-every component op vectorizes across rays in the TPU's 8x128 VPU lanes.
-AoS (N, 3) arrays would waste 125/128 of each lane tile.
+every component op vectorizes across rays with unit-stride access.
 
 Also provides: orthonormal basis construction (cugar/linalg matrix utils +
 src/vertex.h differential geometry), reflect/refract (cugar/bsdf/refraction.h),

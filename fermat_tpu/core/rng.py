@@ -3,7 +3,7 @@
 Reference analogs:
   * cugar/sampling/lfsr.h (LFSRGeneratorMatrix MCQMC streams) and
     cugar/sampling/random.h — replaced by stateless integer-hash
-    counter RNG (PCG/lowbias mixes), which is the idiomatic JAX/TPU design:
+    counter RNG (PCG/lowbias mixes), which is the idiomatic JAX design:
     no state to thread, every lane derives its stream from (pixel, dim, frame).
   * src/tiled_sequence.h:40-140 — per-pixel N-dim sequences built as a shared
     per-frame base QMC point + per-pixel Cranley-Patterson rotation from tiled
@@ -11,7 +11,7 @@ Reference analogs:
     per-pixel decorrelation is hash-based Owen (nested uniform) scrambling,
     which strictly dominates CP rotation in quality at the same cost profile.
 
-All ops are uint32 bit math — they vectorize across the VPU lanes.
+All ops are uint32 bit math — they vectorize across lanes.
 """
 from __future__ import annotations
 
@@ -67,9 +67,9 @@ def pcg_2d(a: Array, b: Array) -> Tuple[Array, Array]:
 def uniform_from_bits(bits: Array) -> Array:
     """uint32 -> float32 in strict [0, 1).
 
-    Split into two 16-bit halves before converting: Mosaic (Pallas TPU)
-    has no uint32->float32 lowering, and the halves route through the
-    supported int32->float32 path. hi*2^16 is exact in f32 and the
+    Split into two 16-bit halves before converting: some Pallas backends
+    have no uint32->float32 lowering, and the halves route through the
+    int32->float32 path every backend supports. hi*2^16 is exact in f32 and the
     single rounding of the sum matches a direct round-to-nearest
     conversion, so the conversion is BIT-IDENTICAL to
     bits.astype(float32). Bits >= 0xFFFFFF80 would then round to

@@ -4,7 +4,7 @@ Provides the hard-coded real SH basis up to l = 3 (the reference's
 templated `sh<l,m>` specializations), zonal-harmonics rotation
 (`rotate_ZH`, sh.h:72-96) and MC projection/reconstruction helpers.
 
-TPU shape: basis evaluation is a flat (N, (L+1)^2) vectorized polynomial
+Shape: basis evaluation is a flat (N, (L+1)^2) vectorized polynomial
 table — no per-(l,m) dispatch; everything fuses into surrounding math.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ Reference analogs:
   * renderers/bpt* (bpt_impl.h:122-260): non-atomic sink for eye-indexed
     strategies, atomic sink for light tracing.
 
-TPU-first shape: one jitted pass. Light subpaths are walked first and stored
+Shape: one jitted pass. Light subpaths are walked first and stored
 as (N, L) SoA slot arrays (the VertexStorage analog — fixed capacity, masked
 slots, no append queues). The eye walk then runs PT-style with, at each eye
 vertex: the s=0 emissive strategy, the s=1 NEE strategy, and s>=2 vertex

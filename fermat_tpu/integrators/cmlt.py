@@ -17,7 +17,7 @@ Reference analogs: src/renderers/cmlt.{h,cu} —
     chart+coordinate resampling, global image brightness b as the MH
     normalization (cmlt.cu:687-714 sample_seeds + st counters).
 
-TPU-first shape: chains = lanes; one jitted step per pass. The evaluator
+Shape: chains = lanes; one jitted step per pass. The evaluator
 traces the light subpath to its maximum stored depth and the eye subpath to
 max_path_length with explicit per-slot records (vertex ids, throughputs,
 SmallVCM dVCM/dVC MIS accumulators, incoming pdfs), then SELECTS the

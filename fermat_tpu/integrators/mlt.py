@@ -11,7 +11,7 @@ Reference analogs:
     seeding, pdf_norm bookkeeping, chain reseeding,
   * src/path.h Path/BidirPath — explicit vertex-chain storage.
 
-TPU-first shape: chains are lanes, one jitted computation per pass:
+Shape: chains are lanes, one jitted computation per pass:
 
   1. PRESAMPLE: every chain independently traces one eye subpath and one
      light subpath (BPT-style with the SmallVCM dVCM/dVC MIS recursion;

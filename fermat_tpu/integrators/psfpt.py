@@ -6,7 +6,7 @@ average over all paths landing in the same jittered spatial-hash cell;
 two-stage (fill hash, then splat refs), with temporal reuse and firefly
 clamping options (psfpt.h:348-388).
 
-TPU shape: one pass = a PT walk that factors each path's contribution as
+Shape: one pass = a PT walk that factors each path's contribution as
   L = L_direct + thr_psf * L_at_psf
 where L_at_psf is accumulated with throughput RELATIVE to the PSF vertex
 (set to 1 there) — numerically stable (no division by the path throughput).

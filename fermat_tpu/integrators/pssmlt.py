@@ -10,7 +10,7 @@ Reference: src/renderers/pssmlt.{h,cu} —
     states splatted at their expected-value weights (pssmlt.cu:153-322,
     `accept_reject_accumulate` with atomic splats).
 
-TPU shape: chains are lanes. The path evaluator is the SAME jitted
+Shape: chains are lanes. The path evaluator is the SAME jitted
 integrator machinery driven by a MatrixSequence of per-chain primary
 samples. `path_space="bpt"` (the default, matching the reference — chains
 re-trace through BPTLib, pssmlt.cu:326-345) evaluates full bidirectional

@@ -6,7 +6,7 @@ src/direct_lighting_rl.h:45-180 (preprocess = cell hash lookup, sample =
 2-level cluster -> light CDF draw, update = TD update on the occlusion
 result), and the VTL clustering of mesh_lights.cu:632-891.
 
-TPU design:
+Design:
   * clusters: emissive triangles morton-sorted and partitioned into
     equal-power chunks (the light-BVH-cut analog), host-built once.
   * per-cell Q table (K cells x C clusters) is the renderer state; sampling
@@ -222,10 +222,6 @@ def update(
 # ---------------------------------------------------------------------------
 
 def _fetch_vtl_rows(vtls, slot: Array) -> Array:
-    if vtls.rows.shape[0] <= 2048:
-        from fermat_tpu.ops.gather import gather_rows
-
-        return gather_rows(vtls.rows, slot)
     return vtls.rows[slot]
 
 

@@ -9,7 +9,7 @@ per-pixel "VPL" encoding of each path's secondary vertex), rpt.cu:
     REUSE_SHADOW_SAMPLES stochastic shadow rays from a CDF over the
     accumulated contributions.
 
-TPU-first shape: one jitted pass, two phases.
+Shape: one jitted pass, two phases.
 
   Phase A (record): a PT walk. At the primary vertex x: direct lighting as
   usual (NEE + emissive). The sampled continuation hits the secondary

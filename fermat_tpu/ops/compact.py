@@ -1,4 +1,4 @@
-"""Stream compaction + splat primitives — the TPU replacement for the
+"""Stream compaction + splat primitives — the XLA replacement for the
 reference's warp-aggregated queue atomics.
 
 Reference: cugar/basic/cuda/warp_atomics.h:99-180 (`warp_increment`) used by
@@ -6,7 +6,7 @@ PTRayQueue::warp_append (pathtracer_queues.h:69-93) to append surviving rays
 to dense queues, and the atomic framebuffer splats
 (per_warp_atomic_add, pathtracer_core.h:544-565).
 
-TPUs have no global atomics; the equivalents are:
+XLA exposes no global atomics; the equivalents are:
   * `compact`     — exclusive-scan (cumsum) + scatter: mask -> dense prefix
                     of surviving lanes (the queue-append analog)
   * `expand`      — inverse mapping for reading compacted results back
@@ -81,7 +81,7 @@ def scatter_tree(c: Compaction, compacted_tree, original_tree):
 def splat_add(image: Array, pixel: Array, values: Array, enabled: Array = None) -> Array:
     """Scatter-add splats (the atomic ConnectionsSink<true> analog).
 
-    image (P, C); pixel (n,); values (n, C). Deterministic on TPU.
+    image (P, C); pixel (n,); values (n, C).
     """
     if enabled is not None:
         values = jnp.where(enabled[:, None], values, 0.0)

@@ -157,8 +157,8 @@ def render_pass_gspmd(
     Same computation as render_pass_sharded, but jit-of-sharded-inputs
     instead of shard_map — on XLA:CPU the explicit shard_map formulation
     of the PT graph lowers pathologically (minutes at 32x32 where GSPMD
-    takes seconds; same story as render_bpt_pass_sharded's docstring), and
-    on TPU GSPMD is the production path anyway. Returns _PassOutput with
+    takes seconds; same story as render_bpt_pass_sharded's docstring).
+    Returns _PassOutput with
     lane arrays sharded over AXIS."""
     from jax.sharding import NamedSharding
 

@@ -2,8 +2,8 @@
 
 Reference analog: the reference's only resume story is `-save-intermediate`
 pow-2 TGA snapshots (main.cu:171-181) — accumulation state is one
-framebuffer, so resume = reload fb + instance (SURVEY.md §5). The TPU build
-makes that a first-class feature (preemptible pod slices): the full
+framebuffer, so resume = reload fb + instance (SURVEY.md §5). This build
+makes that a first-class feature (preemptible machines): the full
 accumulation state (framebuffer pytree + pass counter + MCMC chain state if
 any) round-trips through a single .npz.
 

@@ -7,8 +7,8 @@ renderer.cu:1099-1217 (7 iterations with doubling steps, per-channel
 demodulation by albedo, variance-adaptive phi_color, box-prefiltered
 variance renderer.cu:366-399).
 
-TPU shape: each tap is a jnp.roll + mask over the whole (H, W, 3) plane —
-25 taps x 7 iterations of pure VPU work, no gathers.
+Shape: each tap is a jnp.roll + mask over the whole (H, W, 3) plane —
+25 taps x 7 iterations of elementwise work, no gathers.
 """
 from __future__ import annotations
 

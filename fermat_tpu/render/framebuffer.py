@@ -7,7 +7,7 @@ multiply/rescale_frame (:403-416), update_variances (:333-362, Welford deltas
 stored in the alpha component), to_rgba tonemap (:83-130: exposure,
 c/(1+c), gamma).
 
-TPU design: the framebuffer is an immutable pytree of (H, W, 3) arrays plus
+Design: the framebuffer is an immutable pytree of (H, W, 3) arrays plus
 (H, W) variance planes; progressive accumulation is functional
 (fb' = fb * n/(n+1) + sample/(n+1)) so a pass is one pure jitted function.
 """

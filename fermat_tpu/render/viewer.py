@@ -7,7 +7,7 @@ Reference analogs:
     kAlbedo kDiffuseAlbedo kSpecularAlbedo kDiffuseColor kSpecularColor
     kDirectLighting kFiltered kVariance kNormal kAux0.
 
-TPU-first shape: the environment is headless (no GL), so the frontend is a
+Shape: the environment is headless (no GL), so the frontend is a
 terminal renderer — truecolor ANSI half-blocks ('▀' with independent
 fg/bg colors packs two pixels per character cell), progressive passes
 between input polls, camera ops rebuild the (pytree) camera without

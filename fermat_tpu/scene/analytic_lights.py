@@ -3,7 +3,7 @@
 Reference: src/lights.h LightType{Point, Disk, Rectangle, Directional, Mesh,
 VTL} with manual-dispatch sample/eval (lights.h:47-330, DiskLight:175).
 
-TPU-native routing:
+Routing:
   * Disk / Rectangle area lights become EMISSIVE GEOMETRY at scene build —
     tessellated into the mesh with an emissive material. Every integrator
     (PT NEE+MIS, BPT connections, RL clustering, PSF) then handles them

@@ -6,11 +6,11 @@ renderers/rpt.cu:426) but leaves the bodies empty; its pbrt importer maps
 LightSource "infinite" to a constant. This module goes beyond that parity
 point: a full textured infinite light with next-event estimation.
 
-TPU-first design notes:
+Design notes:
 - sampling inverts ONE flattened (H*W,) CDF with a single vectorized
   `searchsorted` (binary search, log2(H*W) steps) instead of the classic
   marginal-then-conditional 2D inversion — the 2D form needs a per-lane
-  (N, W) row gather which is pure HBM traffic on TPU.
+  (N, W) row gather which is pure device-memory traffic.
 - the per-texel weight is luminance(texel) * sin(theta_row), so the flat
   CDF *is* the correct joint distribution; the solid-angle pdf of the
   procedure (uniform jitter inside the chosen texel) is

@@ -8,7 +8,7 @@ Reference analogs:
   * src/edf.h:49 — Lambertian EDF: radiance == emissive color on the front
     side (cugar/bsdf/lambert_edf.h:60-64).
 
-TPU design: the CDF is a flat device array sampled with a vectorized
+Design: the CDF is a flat device array sampled with a vectorized
 `searchsorted` per lane; the tri -> pdf lookup for MIS is a dense (T,) array
 gather (no hash). VPL presampling and the light BVH / clustered-RL machinery
 build on this in fermat_tpu.integrators.rl (later tier).
@@ -94,7 +94,7 @@ class MeshLightsView(NamedTuple):
         t_count = self.cdf.shape[0]
         if t_count <= 2048:
             # fused compare+sum upper_bound — avoids searchsorted's
-            # gather-based binary search (~log T gathers/lane on TPU)
+            # gather-based binary search (~log T gathers/lane)
             tri = jnp.sum(
                 (self.cdf[None, :] <= u2[:, None]).astype(jnp.int32), axis=1
             )
@@ -109,7 +109,7 @@ class MeshLightsView(NamedTuple):
         vec = lambda cidx: Vec3(r[:, cidx], r[:, cidx + 1], r[:, cidx + 2])
         p0, e1, e2, n, le = vec(0), vec(3), vec(6), vec(9), vec(12)
         pos = p0 + e1 * b0 + e2 * b1
-        pdf = r[:, 15]  # col 15: no separate (T,) scalar gather (PERF_ATTRIB)
+        pdf = r[:, 15]  # col 15: no separate (T,) scalar gather
         return pos, n, le, pdf, tri
 
     def sample_ex(self, mesh: MeshView, u0: Array, u1: Array, u2: Array):
@@ -137,16 +137,10 @@ class MeshLightsView(NamedTuple):
         return pos, n, le, pdf, tri, uv_u, uv_v, emap
 
     def pdf_area_of(self, tri: Array) -> Array:
-        """Area pdf for MIS when a BSDF ray hits an emitter (tri >= 0).
+        """Area pdf for MIS when a BSDF ray hits an emitter (tri >= 0)."""
+        from fermat_tpu.ops.gather import gather_rows
 
-        One-hot row fetch for small tables — the plain `pdf_area[tri]`
-        gather cost ~0.8 ms/bounce at 512^2 (PERF_ATTRIB.md)."""
-        tri_c = jnp.maximum(tri, 0)
-        if self.pdf_area.shape[0] <= 2048:
-            from fermat_tpu.ops.gather import gather_rows
-
-            return gather_rows(self.pdf_area[:, None], tri_c)[:, 0]
-        return self.pdf_area[tri_c]
+        return gather_rows(self.pdf_area[:, None], jnp.maximum(tri, 0))[:, 0]
 
 
 def _emissive_of(mesh: MeshView, mid: Array) -> Vec3:

@@ -16,7 +16,7 @@ renderer.cu:704-720). Directive coverage:
   AreaLightSource "diffuse" -> emissive override on subsequent shapes
   Shape "trianglemesh" (inline P/N/uv/indices), "plymesh", "sphere",
     "disk" (analytic shapes tessellated — the renderer is mesh-only by
-    design, every surface rides the same TPU tracer)
+    design, every surface rides the same tracer)
   ObjectBegin/ObjectEnd/ObjectInstance (mesh instancing by merge —
     flattened at load; the tracer's input is one global mesh)
   LightSource "infinite" -> constant env radiance from "L", or a full

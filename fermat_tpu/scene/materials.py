@@ -2,7 +2,7 @@
 
 The reference stores one AoS MeshMaterial per slot {diffuse, diffuse_trans,
 ambient, specular, emissive, reflectivity, roughness, IoR, opacity, flags,
-6 texture refs}. TPU-first, the table is a struct-of-arrays so a wavefront of
+6 texture refs}. Here the table is a struct-of-arrays so a wavefront of
 rays can gather each field as a flat 1D gather (lane-friendly), and so every
 field is differentiable (the inverse-rendering path takes gradients w.r.t.
 this pytree directly).
@@ -75,10 +75,9 @@ class MaterialTable(NamedTuple):
     def gather(self, mat_id: Array) -> "MaterialTable":
         """Per-lane material fetch: returns a MaterialTable of (N,) arrays.
 
-        Uses a one-hot MXU matmul over the packed row matrix — material
-        tables are tiny, so this removes ~20 scalar gathers per lane
-        (texture-slot ids are fetched as plain gathers only because they are
-        not needed on hot shading lanes yet).
+        One gather_rows fetch over the packed row matrix instead of ~20
+        scalar gathers per lane (texture-slot ids are fetched as plain
+        gathers only because they are not needed on hot shading lanes yet).
         """
         from fermat_tpu.ops.gather import gather_rows
 

@@ -7,11 +7,11 @@ Reference analogs:
   * MeshView (src/mesh/MeshView.h:96-170) — the POD device view passed by
     value into kernels.
 
-TPU-first differences: the device view is a pytree of flat SoA jnp arrays
+Differences: the device view is a pytree of flat SoA jnp arrays
 (component-per-array), so triangle fetches are 1D gathers that vectorize over
 the wavefront; "host -> device mirror" (renderer.cu:912 `m_mesh_d = m_mesh`)
-is a single `jax.device_put` of the pytree (replicated across the pod by the
-parallel layer).
+is a single `jax.device_put` of the pytree (replicated across the device
+mesh by the parallel layer).
 """
 from __future__ import annotations
 
@@ -149,7 +149,7 @@ class MeshStorage:
 
         Used to build masked shadow-ray geometry (the reference instead
         filters per-ray in the any-hit, optix_base_shadow_shaders.h:55-59;
-        with static flags a pre-filtered triangle set is the TPU shape).
+        with static flags a pre-filtered triangle set is the simpler shape).
         Groups collapse to one — occlusion rays never read group names.
         """
         keep = np.asarray(keep, bool)
@@ -258,8 +258,7 @@ class MeshView(NamedTuple):
         Column layout: p0(0:3) e1(3:6) e2(6:9) gn(9:12) n0(12:15) n1(15:18)
         n2(18:21) uv0(21:23) uv1(23:25) uv2(25:27) mat_id(27).
         Built inside jit (XLA folds/CSEs it); lets a hit fetch move one row
-        instead of ~28 scalar gathers — and become a single one-hot MXU
-        matmul for small meshes (fermat_tpu.ops.gather).
+        instead of ~28 scalar gathers (fermat_tpu.ops.gather).
         """
         return jnp.stack(
             [
@@ -306,8 +305,7 @@ class MeshView(NamedTuple):
         pre-gathered per TRIANGLE (19 float cols + 4 texture-slot ids).
 
         A hit shade becomes ONE row fetch instead of three separate
-        fetches keyed by tri/mat_id/tri (measured 3.4 + 2.3 + 1.5 ms/bounce
-        at 512^2 — PERF_ATTRIB.md "Remaining hot spots"). The (M -> T)
+        fetches keyed by tri/mat_id/tri. The (M -> T)
         material join is loop-invariant, so XLA hoists it out of the
         bounce fori_loop; the per-bounce cost is the single 52-col fetch.
         """
@@ -328,8 +326,7 @@ class MeshView(NamedTuple):
         MaterialTable-of-lanes) — the fused equivalent of
         interpolate() + materials.gather() + fetch_lod_base(). Pass the
         precomputed `table` (shade_rows()) from OUTSIDE any bounce loop:
-        XLA does not hoist the (M -> T) material join out of fori_loops
-        (measured ~3.6 ms/bounce of rebuild at 512^2, PERF_ATTRIB).
+        XLA does not hoist the (M -> T) material join out of fori_loops.
         """
         from fermat_tpu.ops.gather import gather_rows
 
@@ -368,66 +365,6 @@ class MeshView(NamedTuple):
             bump_map=jnp.round(r[:, 51]).astype(jnp.int32),
         )
         return pos, gn, sn, uv, mat_id, lod_base, mats
-
-    def shade_fetch_ray(self, tri: Array, o: Vec3, d: Vec3, table=None):
-        """shade_fetch with (u, v) derived IN-PLACE from the ray and the
-        row's own p0/e1/e2 (Moller-Trumbore barycentrics) instead of
-        taking them as inputs. Lets closest tracers skip their separate
-        uv-recompute gather (trace_closest_frontier(with_uv=False)): the
-        shade row already carries the triangle basis at cols 0-8, so the
-        barycentrics cost ~40 flops and ZERO extra gathers. Returns the
-        shade_fetch tuple with (u, v) appended."""
-        from fermat_tpu.ops.gather import gather_rows
-
-        r = gather_rows(self.shade_rows() if table is None else table, tri)
-        r = jnp.concatenate(
-            [jax.lax.stop_gradient(r[:, :29]), r[:, 29:]], axis=1
-        )
-        vec = lambda c: Vec3(r[:, c], r[:, c + 1], r[:, c + 2])
-        p0, e1, e2, gn = vec(0), vec(3), vec(6), vec(9)
-        # Moller-Trumbore barycentrics of the ray against the fetched
-        # triangle (same formula as the tracer-side recompute)
-        pvx = d.y * e2.z - d.z * e2.y
-        pvy = d.z * e2.x - d.x * e2.z
-        pvz = d.x * e2.y - d.y * e2.x
-        det = e1.x * pvx + e1.y * pvy + e1.z * pvz
-        inv_det = jnp.where(
-            det != 0.0, 1.0 / jnp.where(det == 0.0, 1.0, det), 0.0)
-        tvx = o.x - p0.x
-        tvy = o.y - p0.y
-        tvz = o.z - p0.z
-        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-        qvx = tvy * e1.z - tvz * e1.y
-        qvy = tvz * e1.x - tvx * e1.z
-        qvz = tvx * e1.y - tvy * e1.x
-        v = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det
-        u = jax.lax.stop_gradient(u)
-        v = jax.lax.stop_gradient(v)
-
-        n0, n1, n2 = vec(12), vec(15), vec(18)
-        pos = p0 + e1 * u + e2 * v
-        w = 1.0 - u - v
-        sn = normalize(n0 * w + n1 * u + n2 * v)
-        uv = (r[:, 21:23] * w[:, None] + r[:, 23:25] * u[:, None]
-              + r[:, 25:27] * v[:, None])
-        mat_id = jnp.round(r[:, 27]).astype(jnp.int32)
-        lod_base = r[:, 28]
-        mats = MaterialTable(
-            diffuse=vec(29),
-            specular=vec(32),
-            emissive=vec(35),
-            diffuse_trans=vec(38),
-            reflectivity=vec(41),
-            roughness=r[:, 44],
-            ior=r[:, 45],
-            opacity=r[:, 46],
-            flags=jnp.round(r[:, 47]).astype(jnp.int32),
-            diffuse_map=jnp.round(r[:, 48]).astype(jnp.int32),
-            specular_map=jnp.round(r[:, 49]).astype(jnp.int32),
-            emissive_map=jnp.round(r[:, 50]).astype(jnp.int32),
-            bump_map=jnp.round(r[:, 51]).astype(jnp.int32),
-        )
-        return pos, gn, sn, uv, mat_id, lod_base, mats, u, v
 
     def interpolate(self, tri: Array, u: Array, v: Array):
         """Differential geometry at hit (tri, u, v) — setup_differential_geometry

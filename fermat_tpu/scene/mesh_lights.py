@@ -13,7 +13,7 @@ Reference analogs:
     area-prioritized cut defines the cluster granularity; the adaptive
     clustered-RL (src/clustered_rl_inline.h) refines/coarsens this cut.
 
-TPU design: all builds are one-time host numpy. The device view is a
+Design: all builds are one-time host numpy. The device view is a
 16-column row table per VTL (world-space sub-triangle origin/edges, normal,
 radiance, conditional area pdf) so one NEE sample is a single one-hot row
 fetch — no mesh gathers. VTL depth is uniform PER TRIANGLE (a triangle with
@@ -508,7 +508,7 @@ class VPLView(NamedTuple):
 
         m = self.rows.shape[0]  # static (count is a traced leaf under jit)
         k = jnp.minimum((u * m).astype(jnp.int32), m - 1)
-        r = gather_rows(self.rows, k) if m <= 2048 else self.rows[k]
+        r = gather_rows(self.rows, k)
         vec = lambda c0: _V(r[:, c0], r[:, c0 + 1], r[:, c0 + 2])
         return vec(0), vec(3), vec(6), r[:, 9], r[:, 10].astype(jnp.int32)
 

@@ -224,7 +224,7 @@ def bathroom_standin(n_boxes: int = 8300, seed: int = 3,
     texture references) and the bundled .tga texture set is loaded through
     the standard atlas path. This exercises the full textured hot path
     (atlas fetch + ray-cone LOD + textured NEE) at reference triangle
-    counts on TPU.
+    counts.
 
     Returns (MeshStorage, Camera, texture_dir).
     """

@@ -6,7 +6,7 @@ decorrelate cell boundaries; backed by cugar's SyncFreeHashMap
 (cugar/basic/cuda/hash.h). Used by PSFPT accumulation and the clustered-RL
 direct lighting tables.
 
-TPU design: open-addressing-free stochastic table — key -> slot by modulo;
+Design: open-addressing-free stochastic table — key -> slot by modulo;
 collisions are DETECTED (key scatter + compare) rather than resolved, and
 colliding lanes fall back to their unfiltered estimate. No atomics anywhere:
 inserts are scatter-writes, accumulation is scatter-add.

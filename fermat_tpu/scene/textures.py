@@ -5,7 +5,7 @@ src/texture_view.h (TextureView/MipMapView), loading at renderer.cu:784-882
 (TGA/PFM -> float4 mip chains), and the ray-cone LOD selection of the PT
 (pathtracer_core.h ray-cone footprint tracking).
 
-TPU design: XLA needs static shapes, so all mip levels of all textures are
+Design: XLA needs static shapes, so all mip levels of all textures are
 packed into ONE flat (S, 4) texel array plus a small (n_tex, n_levels)
 offset/size table. A lookup is 4 texel gathers (bilinear) at a computed
 level — the only irreducibly-gathering op in the renderer (the atlas is far
@@ -65,10 +65,8 @@ class TextureAtlas(NamedTuple):
     n_levels: Array  # (n_tex,) i32
     # (S,) u32 RGBA8-packed texels, present iff EVERY source image is
     # 8-bit-exact (TGA path). One gathered element per tap instead of a
-    # 4-wide row: TPU gathers run ~element-per-cycle on the scalar unit,
-    # so this quarters texture-fetch cost losslessly (measured: textures
-    # were 5.6 s of the 11.25 s bathroom2 pass, round 4). None = float
-    # sources (PFM/HDR), row-gather fallback.
+    # 4-wide row: a quarter of the gathered elements, losslessly. None =
+    # float sources (PFM/HDR), row-gather fallback.
     packed: Optional[Array] = None
     # (S, 4) u32 wrap-aware bilinear QUAD mirror: column k of row
     # o + y*w + x holds packed[(x, y)], [(x+1)%w, y], [(x, (y+1)%h)],
@@ -227,10 +225,8 @@ class TextureAtlas(NamedTuple):
         (bilinear_texture_lookup, src/texture_view.h:143-179: the
         reference's PT shading always samples LOD 0; its mip chain exists
         but shading never selects levels). Fast path for 8-bit atlases:
-        level-0 metadata rides a one-hot row fetch (MXU) and the whole
-        quad is ONE (S, 4) u32 row gather on the wrap-aware quad mirror
-        (round 5; the previous 2-array form still cost 4 fused 1-D
-        gathers ~10-32 ms each at 1.43M lanes)."""
+        level-0 metadata rides a gather_rows fetch and the whole quad is
+        ONE (S, 4) u32 row gather on the wrap-aware quad mirror."""
         tex_c = jnp.maximum(tex, 0)
         if self.packed_q is None:
             rgba = self._level_fetch(tex_c, jnp.zeros_like(tex_c), u, v)

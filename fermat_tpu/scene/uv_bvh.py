@@ -8,7 +8,7 @@ Reference analogs:
     connected, non-overlapping UV triangles (components of the shared-
     uv-edge graph).
 
-TPU shape: the tree is a host-built (numpy) median-split skip-link array;
+Shape: the tree is a host-built (numpy) median-split skip-link array;
 `locate` is a jnp `lax.while_loop` walk over flat node arrays — the same
 stackless scheme as the 3D skip-link tracer (accel/traverse.py), with the
 point-in-box test replacing the slab test.

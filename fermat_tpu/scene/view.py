@@ -32,7 +32,6 @@ class ShadowSet(NamedTuple):
 
     mesh: MeshView
     bvh: BvhView
-    clusters: "object"
 
 
 class SceneView(NamedTuple):
@@ -44,7 +43,6 @@ class SceneView(NamedTuple):
     textures: TextureAtlas
     env: "jax.Array"  # (3,) constant environment radiance (0 = none)
     point_lights: "object"  # PointLightsView (delta lights)
-    clusters: "object" = None  # accel.cluster.ClusterView (large-scene TPU path)
     vpls: "object" = None  # mesh_lights.VPLView (presampled emission-proportional points)
     # masked shadow-ray geometry (optix_base_shadow_shaders.h:55-59): a
     # (direct, indirect) pair of ShadowSet or None when no material carries
@@ -112,9 +110,6 @@ class SceneView(NamedTuple):
 
         mesh = storage.device_view()
         bvh = build_bvh_for_mesh(mesh, leaf_size=leaf_size)
-        from fermat_tpu.accel.cluster import build_clusters
-
-        clusters = build_clusters(mesh)
         # texture-integrated emissive CDF weights + VPL presampling
         # (mesh_lights.cu:158-380); weights default to lum x area when no
         # emitter has a texture
@@ -158,7 +153,6 @@ class SceneView(NamedTuple):
             return ShadowSet(
                 mesh=smesh,
                 bvh=build_bvh_for_mesh(smesh, leaf_size=leaf_size),
-                clusters=build_clusters(smesh),
             )
 
         sd = shadow_set(FLAG_SHADOW_DIRECT_IGNORE)
@@ -173,7 +167,7 @@ class SceneView(NamedTuple):
             mesh=mesh, bvh=bvh, lights=lights, dir_lights=dl, camera=camera,
             textures=atlas, env=jnp.asarray(env_radiance, jnp.float32),
             point_lights=PointLightsView.build(list(point_light_defs)),
-            clusters=clusters, vpls=vpls, shadow_sets=shadow_sets,
+            vpls=vpls, shadow_sets=shadow_sets,
             env_map=(EnvMapView.build(env_map) if env_map is not None
                      else None),
             area_lights=(AreaLightsView.build(list(area_light_defs))

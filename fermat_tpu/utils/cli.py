@@ -41,9 +41,7 @@ def _parse_value(v: str):
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "-cpu" in argv:
-        # force the CPU backend BEFORE any fermat_tpu import: module-level
-        # jnp constants materialize arrays at import time, which would
-        # initialize the auto-registered TPU platform
+        # pin the CPU backend before any device is touched
         import jax
 
         jax.config.update("jax_platforms", "cpu")

@@ -4,8 +4,10 @@ The compute path is JAX/XLA/Pallas; this is the C++ host runtime for
 CPU-bound systems work — scene ingestion and BVH construction — mirroring
 the reference's host C++ (src/mesh/MeshBase.cpp, cugar bvh_sah_builder.h).
 
-The library auto-builds with g++ on first use if the .so is absent; every
-entry point degrades to the pure-python implementation when unavailable.
+The library is built from native/fermat_native.cpp with g++ into
+native/build/ (listed in .gitignore) at first use, and again whenever the
+source is newer than the library; every entry point degrades to the
+pure-python implementation when no compiler is available.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Optional
 import numpy as np
 
 _DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO = os.path.join(_DIR, "libfermat_native.so")
+_SRC = os.path.join(_DIR, "fermat_native.cpp")
+_SO = os.path.join(_DIR, "build", "libfermat_native.so")
 _lib = None
 _tried = False
 
@@ -56,17 +59,26 @@ def _load() -> Optional[C.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO):
-        src = os.path.join(_DIR, "fermat_native.cpp")
-        if os.path.exists(src):
-            try:
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o", _SO],
-                    check=True, capture_output=True, timeout=120,
-                )
-            except Exception as e:  # noqa: BLE001
-                print(f"[native] build failed: {e}", file=sys.stderr)
-                return None
+    if not os.path.exists(_SRC):
+        return None
+    if (not os.path.exists(_SO)
+            or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+        # build under a private name, then rename: concurrent processes
+        # (test workers) never load a half-written library
+        os.makedirs(os.path.dirname(_SO), exist_ok=True)
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(
+                ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
+                check=True, capture_output=True, timeout=300,
+            )
+            os.replace(tmp, _SO)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"[native] build failed: {e}", file=sys.stderr)
+            return None
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     try:
         lib = C.CDLL(_SO)
     except OSError as e:

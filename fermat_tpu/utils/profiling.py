@@ -5,7 +5,7 @@ into PTLoopStats (pathtracer_kernels.h:282-305), and the DEVICE_TIMING
 clock64() per-shade-event breakdown (pathtracer_core.h:480-565,
 print_timer_stats pathtracer_kernels.h:393-454).
 
-TPU equivalents:
+Equivalents here:
   * per-pass wall timers (RenderingContext.stats / dump_speed_stats)
   * `capture_trace` — jax.profiler capture around a callable
   * `op_breakdown` — aggregate per-op device time from the captured chrome

@@ -2,13 +2,14 @@
 //
 // The reference implements all host-side systems code in C++ (mesh loading:
 // src/mesh/MeshBase.cpp/glm.cpp ~4 KLoC; SAH build: cugar/bvh/bvh_sah_builder.h).
-// This library is the TPU build's native runtime for the same pieces: the
+// This library is this build's native runtime for the same pieces: the
 // compute path stays JAX/XLA/Pallas, but scene ingestion and acceleration-
 // structure construction are CPU-bound host work where C++ is 10-100x python.
 //
 // Exposed via a plain C ABI consumed with ctypes (fermat_tpu/utils/native.py).
 //
-// Build: g++ -O3 -march=native -shared -fPIC fermat_native.cpp -o libfermat_native.so
+// Built on first use by fermat_tpu/utils/native.py:
+//   g++ -O3 -shared -fPIC fermat_native.cpp -o build/libfermat_native.so
 
 #include <algorithm>
 #include <cctype>

@@ -80,20 +80,25 @@ class TestEAW:
 
 class TestPallasTrace:
     def test_matches_brute(self):
+        """The Pallas BVH-walk kernel (interpret mode) finds the brute-force
+        hits on camera rays, and honours the active mask."""
+        from fermat_tpu.accel.bvh import build_bvh_for_mesh
         from fermat_tpu.accel.traverse import trace_closest_brute
-        from fermat_tpu.ops.pallas_trace import trace_closest_pallas
         from fermat_tpu.core.camera import generate_camera_rays
+        from fermat_tpu.ops.gpu_bvh_walk import pack, trace_closest_walk
 
         mesh = cornell_box().device_view()
+        tables = pack(mesh=mesh, bvh=build_bvh_for_mesh(mesh))
         half = jnp.full(32 * 32, 0.5)
         o, d, _ = generate_camera_rays(cornell_camera(), 32, 32, half, half)
         tmin, tmax = jnp.float32(1e-3), jnp.float32(1e9)
         hb = trace_closest_brute(mesh, o, d, tmin, tmax)
-        hp = trace_closest_pallas(mesh, o, d, tmin, tmax)
+        hp = trace_closest_walk(tables, o, d, tmin, tmax, interpret=True)
         np.testing.assert_array_equal(np.asarray(hb.tri), np.asarray(hp.tri))
         np.testing.assert_allclose(np.asarray(hb.t), np.asarray(hp.t), rtol=1e-5)
         act = jnp.arange(32 * 32) % 2 == 0
-        hp2 = trace_closest_pallas(mesh, o, d, tmin, tmax, act)
+        hp2 = trace_closest_walk(tables, o, d, tmin, tmax, act,
+                                 interpret=True)
         np.testing.assert_array_equal(
             np.asarray(hp2.tri >= 0), np.asarray(act & (hb.tri >= 0))
         )

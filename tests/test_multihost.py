@@ -1,6 +1,6 @@
 """Multi-host simulation: 2 OS processes x 4 virtual CPU devices each,
 coordinated by jax.distributed — the closest CPU stand-in for the
-multi-host TPU story (SURVEY §2.3 distributed row; BASELINE >80% scaling
+multi-host story (SURVEY §2.3 distributed row; BASELINE >80% scaling
 target's N>=2-hosts rung).
 
 Each process holds its shard of the pixel domain, renders it with the

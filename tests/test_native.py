@@ -1,26 +1,29 @@
 """Native C++ runtime (OBJ parse + SAH build) vs the python reference."""
-import os
 import time
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from fermat_tpu.scene.procedural import cornell_box
 from fermat_tpu.utils import native
+from scene_files import write_obj
 
-REF_OBJ = "/root/reference/models/CornellBox/CornellBox-JP.obj"
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library unavailable"
-)
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if not native.available():
+        pytest.skip("native library unavailable (no C++ compiler)")
 
 
 class TestNativeObj:
-    def test_matches_python_loader(self):
+    def test_matches_python_loader(self, tmp_path):
         from fermat_tpu.scene.loaders.obj import load_obj
 
-        py = load_obj(REF_OBJ)
-        nt = native.load_obj_geometry(REF_OBJ)
+        path = write_obj(str(tmp_path / "cornell.obj"), cornell_box(),
+                         negative=True)
+        py = load_obj(path)
+        nt = native.load_obj_geometry(path)
         assert nt is not None
         np.testing.assert_allclose(nt["vertices"], py.vertices, rtol=1e-6)
         np.testing.assert_array_equal(nt["tri_v"], py.triangles)
@@ -30,14 +33,16 @@ class TestNativeObj:
         for k in range(py.n_triangles):
             assert nt_names[nt["tri_mat"][k]] == py_names[py.material_ids[k]]
 
-    def test_glossy_with_normals_uvs(self):
+    def test_glossy_with_normals_uvs(self, tmp_path):
         from fermat_tpu.scene.loaders.obj import load_obj
 
-        p = "/root/reference/models/CornellBox/CornellBox-Glossy.obj"
+        p = write_obj(str(tmp_path / "glossy.obj"),
+                      cornell_box(glossy_boxes=True), normals=True)
         py = load_obj(p)
         nt = native.load_obj_geometry(p)
         np.testing.assert_allclose(nt["normals"], py.normals, rtol=1e-6)
         np.testing.assert_array_equal(nt["tri_n"], py.normal_indices)
+        np.testing.assert_allclose(nt["uvs"], py.uvs, rtol=1e-6)
 
 
 class TestNativeBvh:

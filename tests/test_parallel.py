@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-Validates the pod-scale path (SURVEY.md §2.3 TPU-native equivalents):
+Validates the sharded path (SURVEY.md §2.3 equivalents):
 sharded == single-device bit-for-bit, and gradients flow with the implicit
 psum through shard_map.
 """
@@ -24,14 +24,22 @@ def _view():
     return SceneView.build(cornell_box(), cornell_camera())
 
 
+def _both_passes(view, opts, mesh):
+    """The sharded and the single-device pass, each one jitted program
+    (op-by-op dispatch of a whole pass takes minutes on the CPU)."""
+    sharded = jax.jit(lambda v: render_pass_sharded(
+        v, opts, RES, RES, jnp.uint32(0), mesh))
+    single = jax.jit(lambda v: render_pass(v, opts, RES, RES, jnp.uint32(0)))
+    return sharded(view), single(view)
+
+
 class TestSharding:
     def test_sharded_matches_single(self):
         view = _view()
         opts = PTOptions(max_path_length=3, rr=False)
         mesh = make_mesh()
         assert mesh.devices.size == 8
-        out_s = render_pass_sharded(view, opts, RES, RES, jnp.uint32(0), mesh)
-        out_1 = render_pass(view, opts, RES, RES, jnp.uint32(0))
+        out_s, out_1 = _both_passes(view, opts, mesh)
         np.testing.assert_allclose(
             np.asarray(out_s.composited.x),
             np.asarray(out_1.composited.x),
@@ -50,8 +58,7 @@ class TestSharding:
                                env_map=emap)
         opts = PTOptions(max_path_length=3, rr=False)
         mesh = make_mesh()
-        out_s = render_pass_sharded(view, opts, RES, RES, jnp.uint32(0), mesh)
-        out_1 = render_pass(view, opts, RES, RES, jnp.uint32(0))
+        out_s, out_1 = _both_passes(view, opts, mesh)
         np.testing.assert_allclose(
             np.asarray(out_s.composited.x),
             np.asarray(out_1.composited.x),

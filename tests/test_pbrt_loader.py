@@ -175,9 +175,10 @@ class TestMaterialsAndLights:
 
 
 class TestBundledScene:
-    def test_material_testball_loads_checker_file(self):
-        pb = load_pbrt("/root/reference/models/material-testball/scene.pbrt")
-        names = {m.name: m for m in pb.mesh.materials}
+    def test_material_testball_loads_checker_file(self, tmp_path):
+        from scene_files import write_pbrt
+
+        pb = load_pbrt(write_pbrt(str(tmp_path)))
         tex_mats = [m for m in pb.mesh.materials if m.diffuse_map_name]
         assert tex_mats, "checkerboard floor should carry a baked texture"
         assert all(os.path.exists(m.diffuse_map_name) for m in tex_mats)

@@ -5,8 +5,6 @@ Follows the reference's dual-path consistency pattern
 range queries): here brute-force tracing is the ground truth the BVH must
 match exactly.
 """
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,47 +21,63 @@ from fermat_tpu.core.camera import generate_camera_rays
 from fermat_tpu.core.math import Vec3
 from fermat_tpu.scene.loaders.obj import load_obj
 from fermat_tpu.scene.loaders.fa import load_fa
-from fermat_tpu.scene.procedural import cornell_box, cornell_camera, random_soup
+from fermat_tpu.scene.procedural import (
+    big_room,
+    cornell_box,
+    cornell_camera,
+    random_soup,
+)
+from scene_files import FA_FOV, write_fa, write_obj, write_pbrt, write_ply
 
-REF_MODELS = "/root/reference/models"
 
 
 class TestLoaders:
-    def test_cornell_obj(self):
-        m = load_obj(os.path.join(REF_MODELS, "CornellBox/CornellBox-JP.obj"))
-        assert m.n_triangles > 30
+    """Each loader reads a file written from a procedural mesh
+    (tests/scene_files.py) and must give that mesh back."""
+
+    def test_cornell_obj(self, tmp_path):
+        src = cornell_box()
+        m = load_obj(write_obj(str(tmp_path / "cornell.obj"), src,
+                               negative=True))
+        assert m.n_triangles == src.n_triangles
         names = [mm.name for mm in m.materials]
-        assert "light" in names and "leftWall" in names
+        assert "light" in names and "red" in names
         light = m.materials[names.index("light")]
-        assert max(light.emissive) == pytest.approx(24.0)
+        assert max(light.emissive) == pytest.approx(17.0)
         lo, hi = m.bbox()
         assert np.all(hi - lo > 1.5)  # ~2 unit box
         # negative indices resolved: all triangle indices valid
         assert m.triangles.min() >= 0 and m.triangles.max() < m.n_vertices
+        np.testing.assert_allclose(m.vertices[m.triangles],
+                                   src.vertices[src.triangles], atol=1e-6)
 
-    def test_glossy_obj_with_normals(self):
-        m = load_obj(os.path.join(REF_MODELS, "CornellBox/CornellBox-Glossy.obj"))
+    def test_glossy_obj_with_normals(self, tmp_path):
+        m = load_obj(write_obj(str(tmp_path / "glossy.obj"),
+                               cornell_box(glossy_boxes=True), normals=True))
         assert m.n_triangles > 30
         v = m.device_view()
         # shading normals are unit
         n2 = np.asarray(v.n0.x) ** 2 + np.asarray(v.n0.y) ** 2 + np.asarray(v.n0.z) ** 2
         np.testing.assert_allclose(n2, 1.0, atol=1e-3)
+        box = [mm for mm in m.materials if mm.name == "box"][0]
+        assert box.specular == pytest.approx((0.5, 0.5, 0.5))
 
-    def test_ply(self):
+    def test_ply(self, tmp_path):
         from fermat_tpu.scene.loaders.ply import load_ply
 
-        p = os.path.join(REF_MODELS, "material-testball/models/Mesh000.ply")
-        m = load_ply(p)
-        assert m.n_triangles > 100
+        src = big_room(n_boxes=10)
+        m = load_ply(write_ply(str(tmp_path / "Mesh000.ply"), src))
+        assert m.n_triangles == src.n_triangles > 100
         assert np.isfinite(m.vertices).all()
+        np.testing.assert_array_equal(m.triangles, src.triangles)
+        np.testing.assert_allclose(m.vertices, src.vertices)
 
-    def test_fa_composition(self):
-        # strict=False: the reference checkout does not bundle bathroom4.obj
-        s = load_fa(os.path.join(REF_MODELS, "bathroom2/bathroom_cornell.fa"), strict=False)
-        # references two CornellBox objs with transforms + camera + dir light
-        assert s.mesh.n_triangles > 60
+    def test_fa_composition(self, tmp_path):
+        s = load_fa(write_fa(str(tmp_path)))
+        # two CornellBox objs with transforms + camera + dir light
+        assert s.mesh.n_triangles == 2 * cornell_box().n_triangles
         assert len(s.cameras) == 1
-        assert abs(float(s.cameras[0].fov) - 1.768946) < 1e-5
+        assert abs(float(s.cameras[0].fov) - FA_FOV) < 1e-5
         assert len(s.dir_lights) == 1
         # the Glossy box is scaled x3 and translated: bbox must be displaced
         lo, hi = s.mesh.bbox()
@@ -204,16 +218,17 @@ class TestLBVH:
 
 
 class TestPbrt:
-    def test_material_testball(self):
-        """Load + render the bundled pbrt scene (BASELINE config #5 scene)."""
+    def test_material_testball(self, tmp_path):
+        """Load + render a pbrt scene shaped like the reference's
+        material-testball (BASELINE config #5 scene)."""
         from fermat_tpu.scene.loaders.pbrt import load_pbrt
         from fermat_tpu.render.context import RenderingContext
 
-        pb = load_pbrt("/root/reference/models/material-testball/scene.pbrt")
+        pb = load_pbrt(write_pbrt(str(tmp_path)))
         assert pb.mesh.n_triangles > 1000  # plymeshes + floor
         assert pb.camera is not None
         assert pb.resolution == (1280, 720)
-        assert max(pb.env_radiance) > 0  # infinite light fallback
+        assert max(pb.env_radiance) > 0  # infinite light
         names = [m.name for m in pb.mesh.materials]
         assert any("Rough" in n or "Stand" in n or "Floor" in n for n in names)
         ctx = RenderingContext.create(

@@ -2,8 +2,7 @@
 
 The reference's demo assets ship without their .obj geometry, so these
 scenes pair procedural geometry with the REAL bundled bathroom materials +
-texture set (VERDICT r2 #5). CPU-sized here; bench.py's secondary metrics
-capture the 1600x896 TPU numbers.
+texture set (VERDICT r2 #5). CPU-sized here; bench.py's stages run the 1600x896 sizes on the GPU.
 """
 import jax
 import jax.numpy as jnp

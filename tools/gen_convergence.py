@@ -11,7 +11,7 @@ Usage:
   python tools/gen_convergence.py [--res 1600x896] [--spp 256]
       [--scene bathroom|bigroom|cornell] [--out CONVERGENCE.md]
 
-Run ALONE on TPU. Runtime ~ spp / (measured spp/s); the tool prints an ETA
+Run alone on the GPU. Runtime ~ spp / (measured spp/s); the tool prints an ETA
 after the first pass and each checkpoint line as it lands (flush=True), so
 a killed run still leaves the partial curve in the log.
 """
@@ -24,8 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/fermat_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from fermat_tpu import platform
+
+platform.setup_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
